@@ -5,12 +5,12 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from henjou_tpu.bsdf.disney import disney_eval, disney_params, disney_pdf, disney_sample
-from henjou_tpu.bsdf.ggx import ggx_eval, ggx_sample
-from henjou_tpu.bsdf.glass import ideal_glass_sample, meta_glass_sample
-from henjou_tpu.bsdf.msggx import msggx_sample
-from henjou_tpu.math.vec import normalize
-from henjou_tpu.sampling.cmj import make_cmj_state
+from henjou.bsdf.disney import disney_eval, disney_params, disney_pdf, disney_sample
+from henjou.bsdf.ggx import ggx_eval, ggx_sample
+from henjou.bsdf.glass import ideal_glass_sample, meta_glass_sample
+from henjou.bsdf.msggx import msggx_sample
+from henjou.math.vec import normalize
+from henjou.sampling.cmj import make_cmj_state
 
 
 def states(n, seed=0):
@@ -272,7 +272,7 @@ def test_disney_pdf_integrates_to_one():
 
 
 def test_disney_thinfilm_lut_changes_specular():
-    from henjou_tpu.texture.lut import default_lut
+    from henjou.texture.lut import default_lut
 
     lut = default_lut()
     n = 4096
@@ -291,8 +291,8 @@ def test_disney_thinfilm_lut_changes_specular():
 
 
 def test_dispatch_routing():
-    from henjou_tpu.bsdf.dispatch import bsdf_sample
-    from henjou_tpu.integrator.payload import SurfaceHit
+    from henjou.bsdf.dispatch import bsdf_sample
+    from henjou.integrator.payload import SurfaceHit
 
     n = 3
     mk = lambda shape, val: jnp.full(shape, val)

@@ -5,8 +5,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from henjou_tpu.accel.bruteforce import intersect_bruteforce, occluded_bruteforce
-from henjou_tpu.accel.cluster import (
+from henjou.accel.bruteforce import intersect_bruteforce, occluded_bruteforce
+from henjou.accel.cluster import (
     build_clusters,
     intersect_clusters,
     make_cluster_intersector,
@@ -95,9 +95,9 @@ def test_tmin_tmax_and_inside():
 
 @pytest.mark.slow
 def test_renderer_uses_clusters_on_cornell():
-    from henjou_tpu.integrator.payload import Sky, closest_hit
-    from henjou_tpu.scene.scenedata import build_device_scene, build_frame_scene
-    from henjou_tpu.scene.testscenes import cornell_box_scene
+    from henjou.integrator.payload import Sky, closest_hit
+    from henjou.scene.scenedata import build_device_scene, build_frame_scene
+    from henjou.scene.testscenes import cornell_box_scene
 
     dev = build_device_scene(cornell_box_scene())
     frame = build_frame_scene(dev)

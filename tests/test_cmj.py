@@ -4,7 +4,7 @@ algorithm (include/kernel/cmj.h) plus stratification checks (SURVEY.md §4/§7).
 import jax.numpy as jnp
 import numpy as np
 
-from henjou_tpu.sampling import cmj_1d, cmj_2d, make_cmj_state, xxhash32
+from henjou.sampling import cmj_1d, cmj_2d, make_cmj_state, xxhash32
 
 
 # ---- numpy oracle: direct transliteration of the reference algorithm ----

@@ -2,7 +2,7 @@
 
 Role-match: the reference leans on the OptiX NN denoiser to make its
 300 s frames presentable (include/renderer/denoiser.h:42-189); the
-variance-guided à-trous is the TPU-side filter-class upgrade over the
+variance-guided à-trous is the filter-class upgrade over the
 fixed-sigma à-trous (round-3 VERDICT missing #1 / ask #3).
 """
 
@@ -11,7 +11,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from henjou_tpu.post.denoise import denoise_atrous, denoise_atrous_var
+from henjou.post.denoise import denoise_atrous, denoise_atrous_var
 
 
 def _synthetic():
@@ -101,12 +101,12 @@ def test_demodulation_preserves_smooth_texture_under_heavy_noise():
 
 @pytest.mark.slow
 def test_firefly_clamp_caps_sample_luminance():
-    from henjou_tpu.bsdf.dispatch import bsdf_eval, bsdf_pdf, make_bsdf_sampler
-    from henjou_tpu.integrator.payload import Sky
-    from henjou_tpu.integrator.wavefront import wavefront_render
-    from henjou_tpu.runtime.camera import make_camera
-    from henjou_tpu.scene.scenedata import build_device_scene, build_frame_scene
-    from henjou_tpu.scene.testscenes import cornell_box_scene
+    from henjou.bsdf.dispatch import bsdf_eval, bsdf_pdf, make_bsdf_sampler
+    from henjou.integrator.payload import Sky
+    from henjou.integrator.wavefront import wavefront_render
+    from henjou.runtime.camera import make_camera
+    from henjou.scene.scenedata import build_device_scene, build_frame_scene
+    from henjou.scene.testscenes import cornell_box_scene
 
     dev = build_device_scene(cornell_box_scene())
     frame = build_frame_scene(dev)
@@ -180,7 +180,7 @@ def test_guided_upscale_reconstructs_edges():
     when the full-res albedo/normal guides carry the edge."""
     import jax.numpy as jnp
 
-    from henjou_tpu.post.denoise import upscale2x, upscale2x_guided
+    from henjou.post.denoise import upscale2x, upscale2x_guided
 
     fh, fw = 32, 32
     xs = np.arange(fw)

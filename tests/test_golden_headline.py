@@ -21,11 +21,11 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 def test_golden_headline_features():
-    from henjou_tpu.post.png import read_png, write_png
-    from henjou_tpu.post.srgb import float_to_srgb_u8
-    from henjou_tpu.runtime.options import RenderOption
-    from henjou_tpu.runtime.renderer import Renderer
-    from henjou_tpu.scene.testscenes import headline_mini_scene
+    from henjou.post.png import read_png, write_png
+    from henjou.post.srgb import float_to_srgb_u8
+    from henjou.runtime.options import RenderOption
+    from henjou.runtime.renderer import Renderer
+    from henjou.scene.testscenes import headline_mini_scene
 
     opt = RenderOption(
         image_width=96,

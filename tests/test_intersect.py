@@ -3,7 +3,7 @@
 import jax.numpy as jnp
 import numpy as np
 
-from henjou_tpu.accel.bruteforce import intersect_bruteforce, occluded_bruteforce
+from henjou.accel.bruteforce import intersect_bruteforce, occluded_bruteforce
 
 
 def single_tri():

@@ -6,9 +6,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from henjou_tpu.accel.bruteforce import intersect_bruteforce, occluded_bruteforce
-from henjou_tpu.accel.lbvh import build_lbvh, morton_codes
-from henjou_tpu.accel.traverse import make_bvh_intersector, traverse_closest
+from henjou.accel.bruteforce import intersect_bruteforce, occluded_bruteforce
+from henjou.accel.lbvh import build_lbvh, morton_codes
+from henjou.accel.traverse import make_bvh_intersector, traverse_closest
 
 
 def random_tris(n, seed=0, spread=4.0):
@@ -142,9 +142,9 @@ def test_degenerate_identical_centroids():
 
 @pytest.mark.slow
 def test_closest_hit_with_bvh_on_cornell():
-    from henjou_tpu.integrator.payload import Sky, closest_hit
-    from henjou_tpu.scene.scenedata import build_device_scene, build_frame_scene
-    from henjou_tpu.scene.testscenes import cornell_box_scene
+    from henjou.integrator.payload import Sky, closest_hit
+    from henjou.scene.scenedata import build_device_scene, build_frame_scene
+    from henjou.scene.testscenes import cornell_box_scene
 
     dev = build_device_scene(cornell_box_scene())
     frame = build_frame_scene(dev)
@@ -164,3 +164,33 @@ def test_closest_hit_with_bvh_on_cornell():
     np.testing.assert_allclose(
         np.asarray(hit.basecolor[1]), [0.05, 0.8, 0.05], atol=1e-6
     )  # green right wall
+
+
+def test_jitted_build_equals_eager_on_animated_frames():
+    """The renderer builds the LBVH with one jitted call per distinct
+    transform set; on two frames of an animated scene it must equal the
+    eager (op-by-op) build exactly."""
+    from henjou.runtime.options import RenderOption
+    from henjou.runtime.renderer import Renderer
+    from henjou.scene.animation import static_animation
+    from henjou.scene.testscenes import sphere_gallery_scene
+
+    scene = sphere_gallery_scene()
+    a = static_animation((0, 0, 0), (0, 0, 0, 1), (1, 1, 1))
+    a.translation.keys = [0.0, 1.0]
+    a.translation.values = [[0, 0, 0], [0.5, 0.2, 0]]
+    scene.animations.append(a)
+    for inst in scene.instances:
+        inst.animation_id = len(scene.animations) - 1
+    r = Renderer(option=RenderOption(fps=24))
+    r.set_scene(scene).build()
+    jitted = jax.jit(build_lbvh)
+    verts = []
+    for frame in (0, 12):
+        xf, inv = r._frame_transforms(frame / 24.0)
+        tv = r._frame_build(r.device_scene, xf, inv).tri_verts
+        verts.append(np.asarray(tv))
+        a_bvh, b_bvh = jitted(tv), build_lbvh(tv)
+        for x, y in zip(jax.tree.leaves(a_bvh), jax.tree.leaves(b_bvh)):
+            np.testing.assert_array_equal(np.asarray(x), np.asarray(y))
+    assert not np.array_equal(verts[0], verts[1])  # the geometry moved

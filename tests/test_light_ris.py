@@ -1,5 +1,5 @@
 """RIS/WRS next-event light sampling (sampling/light_sample.py
-sample_light_ris; options.py TPU.light_ris).
+sample_light_ris; options.py Henjou.light_ris).
 
 The reference draws exactly one uniform light candidate
 (light_sample.h:40); RIS draws m from the same base strategy, weights
@@ -15,11 +15,11 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from henjou_tpu.sampling import light_sample as ls
-from henjou_tpu.sampling.cmj import make_cmj_state
-from henjou_tpu.scene.scenedata import build_device_scene, build_frame_scene
+from henjou.sampling import light_sample as ls
+from henjou.sampling.cmj import make_cmj_state
+from henjou.scene.scenedata import build_device_scene, build_frame_scene
 
-from tests.test_light_power import _two_light_scene
+from test_light_power import _two_light_scene  # tests/ is on sys.path under pytest
 
 _LUM = np.asarray([0.2126, 0.7152, 0.0722], np.float32)
 
@@ -129,10 +129,10 @@ def test_wavefront_ris_render_unbiased():
     mean with the plain estimator on the two-light Cornell (RIS changes
     the sampler stream, so agreement is statistical, averaged over
     seeds), and its seed-to-seed pixel variance does not regress."""
-    from henjou_tpu.bsdf.dispatch import bsdf_eval, bsdf_pdf, make_bsdf_sampler
-    from henjou_tpu.integrator.payload import Sky
-    from henjou_tpu.integrator.wavefront import wavefront_render
-    from henjou_tpu.runtime.camera import make_camera
+    from henjou.bsdf.dispatch import bsdf_eval, bsdf_pdf, make_bsdf_sampler
+    from henjou.integrator.payload import Sky
+    from henjou.integrator.wavefront import wavefront_render
+    from henjou.runtime.camera import make_camera
 
     frame = _frame()
     sky = Sky(constant_color=jnp.zeros(3), intensity=jnp.asarray(0.0))

@@ -1,6 +1,6 @@
 """Light-path scaling (VERDICT r2 ask #6): the chunked dense
 intersect_lights must stay exact at >512 lights with flat memory, and
-the binned emissive-subset intersector must match it at ~1k mesh lights.
+the emissive-subset LBVH (LightAccel) must match it at ~1k mesh lights.
 
 Reference semantics: light_sample.h:9-92 (count-uniform selection) and
 the MIS BSDF-branch trace rt.h:382-420."""
@@ -10,9 +10,9 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from henjou_tpu.scene.scenedata import SceneData, build_device_scene, build_frame_scene
-from henjou_tpu.scene.testscenes import _uv_sphere
-from henjou_tpu.scene.scenedata import make_material
+from henjou.scene.scenedata import SceneData, build_device_scene, build_frame_scene
+from henjou.scene.testscenes import _uv_sphere
+from henjou.scene.scenedata import make_material
 
 
 def _many_light_scene(n_panels=550):
@@ -64,7 +64,7 @@ def light_frame():
 
 
 def test_chunked_intersect_lights_exact_at_1100_lights(light_frame):
-    from henjou_tpu.sampling.light_sample import intersect_lights
+    from henjou.sampling.light_sample import intersect_lights
 
     frame = light_frame
     n_l = int(frame.device.num_lights)
@@ -103,19 +103,22 @@ def test_chunked_intersect_lights_exact_at_1100_lights(light_frame):
     np.testing.assert_allclose(np.asarray(t)[h_ref], t_ref[h_ref], rtol=1e-4)
 
 
-@pytest.mark.slow
-def test_binned_light_intersector_matches_dense(light_frame):
-    from henjou_tpu.sampling.light_sample import (
+def test_light_lbvh_matches_dense_at_1100_lights(light_frame):
+    """LightAccel (an LBVH over the emissive subset, built by one jitted
+    call) traced by the CPU route must give the dense intersect_lights
+    answer: same hits, t, global prim ids and light areas."""
+    from henjou.sampling.light_sample import (
         build_light_accel,
         intersect_lights,
-        make_binned_light_intersector,
+        make_light_intersector,
     )
 
     frame = light_frame
-    la = build_light_accel(
-        np.asarray(frame.tri_verts), np.asarray(frame.device.light_prim_ids)
+    la = jax.jit(build_light_accel)(
+        frame.tri_verts, frame.device.light_prim_ids
     )
-    lfn = make_binned_light_intersector(la, interpret=True)
+    assert la.bvh.num_tris == 1100
+    lfn = jax.jit(make_light_intersector(la))
 
     rng = np.random.default_rng(6)
     n = 1024
@@ -127,7 +130,36 @@ def test_binned_light_intersector_matches_dense(light_frame):
     t_d, p_d, u_d, v_d, h_d, a_d = intersect_lights(frame, o, d, 1e-3, 1e9)
     t_b, p_b, u_b, v_b, h_b, a_b = lfn(frame, o, d, 1e-3, 1e9)
     hd = np.asarray(h_d)
+    assert hd.any()
     assert (hd == np.asarray(h_b)).all()
-    np.testing.assert_allclose(np.asarray(t_b)[hd], np.asarray(t_d)[hd], rtol=1e-4)
+    np.testing.assert_allclose(np.asarray(t_b)[hd], np.asarray(t_d)[hd], rtol=1e-5)
     assert (np.asarray(p_b)[hd] == np.asarray(p_d)[hd]).all()
+    np.testing.assert_allclose(np.asarray(u_b)[hd], np.asarray(u_d)[hd], atol=1e-4)
     np.testing.assert_allclose(np.asarray(a_b)[hd], np.asarray(a_d)[hd], rtol=1e-5)
+    assert (np.asarray(p_b)[~hd] == -1).all()
+
+
+def test_renderer_light_lbvh_matches_dense_path(monkeypatch):
+    """Through Renderer (wavefront, reference MIS, >512 emissive tris):
+    the LightAccel route renders the same film as the dense
+    intersect_lights path it replaces."""
+    from henjou.runtime.options import RenderOption
+    from henjou.runtime.renderer import Renderer
+
+    def render(threshold):
+        monkeypatch.setattr(Renderer, "LIGHT_ACCEL_THRESHOLD", threshold)
+        r = Renderer(option=RenderOption(
+            image_width=8, image_height=8, max_spp=2, spp_batch=2,
+            engine="wavefront", mis_mode="ref", multichip="off",
+            camera_position=(0.0, 0.5, -12.0), camera_direction=(0.0, 0.1, 1.0),
+        ))
+        r.set_scene(_many_light_scene())
+        r.build()
+        out = r.render_frame(0)
+        return out["color"], r._light_accel_cache
+
+    dense, no_accel = render(1 << 30)
+    lbvh, accel = render(512)
+    assert no_accel is None and accel is not None
+    assert np.isfinite(lbvh).all() and lbvh.max() > 0
+    np.testing.assert_allclose(lbvh, dense, rtol=1e-4, atol=1e-5)

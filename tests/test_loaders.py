@@ -7,9 +7,9 @@ import struct
 import numpy as np
 import pytest
 
-from henjou_tpu.scene.gltf import load_gltf
-from henjou_tpu.scene.obj import load_obj
-from henjou_tpu.scene.scenedata import build_device_scene
+from henjou.scene.gltf import load_gltf
+from henjou.scene.obj import load_obj
+from henjou.scene.scenedata import build_device_scene
 
 
 def _gltf_doc():
@@ -170,7 +170,7 @@ def test_glb_embedded_texture_roundtrip(tmp_path):
     (gltfloader.h:1068-1125)."""
     import jax.numpy as jnp
 
-    from henjou_tpu.post.png import write_png
+    from henjou.post.png import write_png
 
     doc, _ = _gltf_doc()
     blob = base64.b64decode(doc["buffers"][0]["uri"].split(",", 1)[1])
@@ -388,7 +388,7 @@ def test_gltf_vertex_colors(tmp_path):
     }
     p = tmp_path / "vc.gltf"
     p.write_text(json.dumps(doc))
-    from henjou_tpu.scene.gltf import load_gltf
+    from henjou.scene.gltf import load_gltf
 
     scene = load_gltf(str(p))
     assert scene.colors is not None
@@ -399,7 +399,7 @@ def test_gltf_vertex_colors(tmp_path):
         cols[3:], col_u8[:, :3].astype(np.float32) / 255.0, atol=1e-6
     )
     # and the device scene must see them (has_vert_colors static flag)
-    from henjou_tpu.scene.scenedata import build_device_scene
+    from henjou.scene.scenedata import build_device_scene
 
     dev = build_device_scene(scene)
     assert dev.has_vert_colors
@@ -414,7 +414,7 @@ def test_obj_vertex_colors(tmp_path):
         "v 0 1 0 0 0 1\n"
         "f 1 2 3\n"
     )
-    from henjou_tpu.scene.obj import load_obj
+    from henjou.scene.obj import load_obj
 
     scene = load_obj(str(p))
     assert scene.colors is not None

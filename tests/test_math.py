@@ -5,7 +5,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from henjou_tpu.math import (
+from henjou.math import (
     cosine_sampling,
     cross,
     dot,
@@ -20,7 +20,7 @@ from henjou_tpu.math import (
     transform_position,
     world_to_local,
 )
-from henjou_tpu.math.affine import (
+from henjou.math.affine import (
     compose_affine,
     invert_affine,
     rotate_affine,

@@ -9,9 +9,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from henjou_tpu.bsdf.fastggx import fast_ggx_eval, fast_ggx_sample
-from henjou_tpu.sampling.cmj import make_cmj_state
-from henjou_tpu.utils.timer import Timer, phase_log
+from henjou.bsdf.fastggx import fast_ggx_eval, fast_ggx_sample
+from henjou.sampling.cmj import make_cmj_state
+from henjou.utils.timer import Timer, phase_log
 
 
 def test_fast_ggx_adds_compensation():
@@ -26,7 +26,7 @@ def test_fast_ggx_adds_compensation():
     assert np.isfinite(np.asarray(b)).all()
     est = (np.asarray(b) * np.abs(np.asarray(wi)[:, 1:2]) / np.asarray(pdf)[:, None]).mean()
     # compensation returns more energy than single-scatter (0.32 at alpha=1)
-    from henjou_tpu.bsdf.ggx import ggx_sample
+    from henjou.bsdf.ggx import ggx_sample
 
     b1, wi1, p1, _ = ggx_sample(f0, rough, wo, st)
     est1 = (np.asarray(b1) * np.abs(np.asarray(wi1)[:, 1:2]) / np.asarray(p1)[:, None]).mean()
@@ -74,9 +74,9 @@ def test_obj_mesh_end_to_end(tmp_path):
     the LBVH/cluster accel selection, and a tiny MIS render."""
     import dataclasses
 
-    from henjou_tpu.runtime.options import RenderOption
-    from henjou_tpu.runtime.renderer import Renderer
-    from henjou_tpu.scene.obj import load_obj
+    from henjou.runtime.options import RenderOption
+    from henjou.runtime.renderer import Renderer
+    from henjou.scene.obj import load_obj
 
     p = str(tmp_path / "sphere.obj")
     _big_sphere_obj(p)
@@ -109,7 +109,7 @@ def test_obj_mesh_end_to_end(tmp_path):
 
 
 def test_debug_nans_hook_catches_nans():
-    """SURVEY §5 race/sanitizer row: jax_debug_nans is the TPU-side
+    """SURVEY §5 race/sanitizer row: jax_debug_nans is the JAX-side
     sanitizer; the CLI exposes it (--debug-nans). Verify it actually
     fires on a NaN-producing program."""
     import pytest
@@ -127,9 +127,9 @@ def test_step_does_not_alias_inputs():
     """Donation-safety (SURVEY §5): the jitted step must not corrupt its
     argument buffers — running the same step twice with the same inputs
     gives identical results."""
-    from henjou_tpu.runtime.options import RenderOption
-    from henjou_tpu.runtime.renderer import Renderer
-    from henjou_tpu.scene.testscenes import cornell_box_scene
+    from henjou.runtime.options import RenderOption
+    from henjou.runtime.renderer import Renderer
+    from henjou.scene.testscenes import cornell_box_scene
 
     r = Renderer(
         option=RenderOption(
@@ -153,9 +153,9 @@ def test_use_date_stamps_output_names(tmp_path):
     import dataclasses
     import re
 
-    from henjou_tpu.runtime.options import RenderOption
-    from henjou_tpu.runtime.renderer import Renderer
-    from henjou_tpu.scene.testscenes import cornell_box_scene
+    from henjou.runtime.options import RenderOption
+    from henjou.runtime.renderer import Renderer
+    from henjou.scene.testscenes import cornell_box_scene
 
     r = Renderer(
         option=RenderOption(
@@ -180,9 +180,9 @@ def test_glass_scene_routes_specular():
     with a glass panel gets light through it)."""
     import dataclasses
 
-    from henjou_tpu.runtime.options import RenderOption
-    from henjou_tpu.runtime.renderer import Renderer
-    from henjou_tpu.scene.scenedata import (
+    from henjou.runtime.options import RenderOption
+    from henjou.runtime.renderer import Renderer
+    from henjou.scene.scenedata import (
         GeometryData,
         InstanceData,
         SceneData,

@@ -8,7 +8,7 @@ import zlib
 import numpy as np
 import pytest
 
-from henjou_tpu.post.png import read_png, write_png
+from henjou.post.png import read_png, write_png
 
 
 def test_png_roundtrip(tmp_path):
@@ -82,14 +82,14 @@ def test_png_filtered_scanlines(tmp_path):
 
 
 def test_native_lib_builds():
-    from henjou_tpu.native import get_lib
+    from henjou.native import get_lib
 
     lib = get_lib()
     assert lib is not None, "cc toolchain present in this image; must build"
 
 
 def test_native_matches_python_unfilter():
-    from henjou_tpu.native import png_unfilter
+    from henjou.native import png_unfilter
 
     rng = np.random.default_rng(3)
     img = rng.integers(0, 256, size=(9, 7, 3), dtype=np.uint8)
@@ -129,7 +129,7 @@ def _write_hdr(path, rgb):
 
 
 def test_hdr_decode(tmp_path):
-    from henjou_tpu.texture.hdr import read_hdr
+    from henjou.texture.hdr import read_hdr
 
     rng = np.random.default_rng(4)
     # shared-exponent format: keep per-pixel channel ratios moderate, or
@@ -145,8 +145,8 @@ def test_hdr_decode(tmp_path):
 
 
 def test_texture_loading_and_atlas(tmp_path):
-    from henjou_tpu.texture.atlas import build_atlas, sample_atlas
-    from henjou_tpu.texture.texture import TexType, load_texture_cached
+    from henjou.texture.atlas import build_atlas, sample_atlas
+    from henjou.texture.texture import TexType, load_texture_cached
 
     rng = np.random.default_rng(5)
     img = rng.integers(0, 256, size=(8, 8, 3), dtype=np.uint8)

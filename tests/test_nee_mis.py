@@ -5,12 +5,12 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from henjou_tpu.runtime.options import RenderOption
-from henjou_tpu.runtime.renderer import Renderer
-from henjou_tpu.sampling.cmj import make_cmj_state
-from henjou_tpu.sampling.light_sample import light_pdf, sample_light
-from henjou_tpu.scene.scenedata import build_device_scene, build_frame_scene
-from henjou_tpu.scene.testscenes import cornell_box_scene
+from henjou.runtime.options import RenderOption
+from henjou.runtime.renderer import Renderer
+from henjou.sampling.cmj import make_cmj_state
+from henjou.sampling.light_sample import light_pdf, sample_light
+from henjou.scene.scenedata import build_device_scene, build_frame_scene
+from henjou.scene.testscenes import cornell_box_scene
 
 
 def cornell_frame():
@@ -99,7 +99,7 @@ def test_nee_lower_variance_than_pt():
 def test_mis_finite_on_gallery():
     """MIS over the full BSDF zoo (specular/metal/thin-film lanes) stays
     finite and non-negative."""
-    from henjou_tpu.scene.testscenes import sphere_gallery_scene
+    from henjou.scene.testscenes import sphere_gallery_scene
 
     r = Renderer(
         option=RenderOption(

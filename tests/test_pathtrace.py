@@ -4,14 +4,14 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from henjou_tpu.integrator.payload import Sky, closest_hit
-from henjou_tpu.integrator.pathtrace import pathtrace
-from henjou_tpu.runtime.camera import camera_rays, make_camera
-from henjou_tpu.runtime.options import RenderOption
-from henjou_tpu.runtime.renderer import Renderer
-from henjou_tpu.sampling.cmj import make_cmj_state
-from henjou_tpu.scene.scenedata import build_device_scene, build_frame_scene
-from henjou_tpu.scene.testscenes import cornell_box_scene, furnace_scene
+from henjou.integrator.payload import Sky, closest_hit
+from henjou.integrator.pathtrace import pathtrace
+from henjou.runtime.camera import camera_rays, make_camera
+from henjou.runtime.options import RenderOption
+from henjou.runtime.renderer import Renderer
+from henjou.sampling.cmj import make_cmj_state
+from henjou.scene.scenedata import build_device_scene, build_frame_scene
+from henjou.scene.testscenes import cornell_box_scene, furnace_scene
 
 
 def black_sky():

@@ -27,8 +27,8 @@ pytestmark = pytest.mark.skipif(
 def test_reference_cornelbox_loads():
     """cornelbox.gltf: 984 tris, 6 materials, 4 instances, camera and
     5 animation channels (verified against the reference's own asset)."""
-    from henjou_tpu.scene.gltf import load_gltf
-    from henjou_tpu.scene.scenedata import build_device_scene
+    from henjou.scene.gltf import load_gltf
+    from henjou.scene.scenedata import build_device_scene
 
     scene = load_gltf(os.path.join(REF_GLTF, "cornelbox.gltf"))
     assert int(np.asarray(scene.indices).shape[0]) // 3 == 984
@@ -42,7 +42,7 @@ def test_reference_cornelbox_loads():
 def test_reference_texture_scene_loads_texture():
     """cornelbox_texture_test.gltf binds texture/Tex.png through the
     atlas path (base-color texture on at least one material)."""
-    from henjou_tpu.scene.gltf import load_gltf
+    from henjou.scene.gltf import load_gltf
 
     scene = load_gltf(os.path.join(REF_GLTF, "cornelbox_texture_test.gltf"))
     assert len(scene.textures) >= 1  # texture/Tex.png decoded
@@ -64,12 +64,12 @@ def _render_reference_scene(tmp_path, gltf_name):
     p = tmp_path / "opt.json"
     p.write_text(json.dumps(doc))
 
-    from henjou_tpu.runtime.renderer import Renderer
+    from henjou.runtime.renderer import Renderer
 
     r = Renderer()
     written = r.initialize_and_render(str(p))
     assert written and os.path.exists(written[0])
-    from henjou_tpu.post.png import read_png
+    from henjou.post.png import read_png
 
     return read_png(written[0])
 

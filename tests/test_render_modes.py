@@ -8,9 +8,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from henjou_tpu.runtime.options import RenderMode, RenderOption, load_render_option
-from henjou_tpu.runtime.renderer import Renderer
-from henjou_tpu.scene.testscenes import cornell_box_scene
+from henjou.runtime.options import RenderMode, RenderOption, load_render_option
+from henjou.runtime.renderer import Renderer
+from henjou.scene.testscenes import cornell_box_scene
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -58,7 +58,7 @@ def test_upscale2x_mode_doubles_resolution(tmp_path):
         r.option, image_directory=str(tmp_path), image_name="up"
     )
     written = r.initialize_and_render()
-    from henjou_tpu.post.png import read_png
+    from henjou.post.png import read_png
 
     img = read_png(written[0])
     # renders at half res (16x16), upscales back to 32x32 (renderer.h:1096-1120)
@@ -72,7 +72,7 @@ def test_temporal_mode_reduces_flicker(tmp_path):
     flickers less than independently denoised frames."""
     import dataclasses
 
-    from henjou_tpu.post.denoise import denoise_atrous
+    from henjou.post.denoise import denoise_atrous
 
     r = _mk_renderer(RenderMode.DENOISE_TEMPORAL, spp=4, size=32)
     r.option = dataclasses.replace(
@@ -115,7 +115,7 @@ def test_debug_mode_outputs_four_aovs(tmp_path):
 
 
 def test_camera_animation_drives_camera():
-    from henjou_tpu.scene.animation import Animation, AnimationTrack
+    from henjou.scene.animation import Animation, AnimationTrack
 
     r = _mk_renderer(spp=1, size=8, allow_camera_animation=True)
     # quarter-turn around Y between t=0 and t=1, plus translation
@@ -153,8 +153,8 @@ def test_save_render_option_snapshot(tmp_path, monkeypatch):
 def test_golden_cornell_regression():
     """Deterministic low-spp Cornell against a checked-in golden image:
     catches any unintended change to sampling, shading or integration."""
-    from henjou_tpu.post.png import read_png, write_png
-    from henjou_tpu.post.srgb import float_to_srgb_u8
+    from henjou.post.png import read_png, write_png
+    from henjou.post.srgb import float_to_srgb_u8
 
     r = _mk_renderer(spp=16, size=48)
     img = r.render_frame(0)["color"]
@@ -195,7 +195,7 @@ def test_animation_budget_split_across_frames(tmp_path, monkeypatch):
     later frame's minimum spp batch overshoots."""
     import dataclasses
 
-    from henjou_tpu.runtime import renderer as rmod
+    from henjou.runtime import renderer as rmod
 
     r = _mk_renderer(RenderMode.DEFAULT, spp=8, size=16)
     r.option = dataclasses.replace(
@@ -236,7 +236,7 @@ def test_animation_budget_reserves_frame_overhead(tmp_path, monkeypatch):
     finalize cost (a 300 s contest run once overshot to 378 s)."""
     import dataclasses
 
-    from henjou_tpu.runtime import renderer as rmod
+    from henjou.runtime import renderer as rmod
 
     r = _mk_renderer(RenderMode.DEFAULT, spp=8, size=16)
     r.option = dataclasses.replace(
@@ -278,12 +278,12 @@ def test_first_batch_sized_to_fit_tight_deadline():
     """A carried per-spp cost estimate (from the previous frame) sizes
     the indivisible FIRST batch down to fit a tight deadline: after
     frame 0's finalize overhead eats the budget, frame 1 renders ~1 spp
-    instead of a full 50+ s spp batch (measured cause of a 334 s run
-    against a 300 s contest budget).
+    instead of a full spp batch that would overshoot a 300 s contest
+    budget.
 
     Downsizing only picks spp variants ALREADY compiled this process
-    (spp is a static jit arg; a fresh variant costs ~1 min of compile on
-    the TPU backend — worse than just running the compiled batch)."""
+    (spp is a static jit arg; compiling a fresh variant can cost more
+    than just running the compiled batch)."""
     # masked engine (CPU auto-resolution)
     r = _mk_renderer(RenderMode.DEFAULT, spp=8, size=16)
     r._est_spp_s = 1000.0  # "each spp takes 1000 s"
@@ -302,7 +302,8 @@ def test_first_batch_sized_to_fit_tight_deadline():
     import dataclasses
 
     r2 = _mk_renderer(RenderMode.DEFAULT, spp=8, size=16)
-    r2.option = dataclasses.replace(r2.option, engine="wavefront")
+    # single device: a sharded step's smallest batch is one spp per device
+    r2.option = dataclasses.replace(r2.option, engine="wavefront", multichip="off")
     r2._est_spp_chunk = 1000.0
     r2._spp_sizes = {1, 8}
     aovs2 = r2.render_frame(0, deadline=1.0)

@@ -1,5 +1,5 @@
 """Production multi-chip rendering: Renderer.render_frame spp-shards its
-chunk steps over every visible device (TPU.multichip="auto") and must
+chunk steps over every visible device (Henjou.multichip="auto") and must
 produce the same image as the single-device run (VERDICT r4 #4; the
 reference's one launch renderer.h:1241 is single-GPU — this is the mesh
 replacement, SURVEY.md §2.5/§7 M8). Runs on the virtual 8-device CPU
@@ -15,9 +15,9 @@ pytestmark = pytest.mark.skipif(
 
 
 def _render(multichip: str):
-    from henjou_tpu.runtime.options import RenderOption
-    from henjou_tpu.runtime.renderer import Renderer
-    from henjou_tpu.scene.testscenes import sphere_gallery_scene
+    from henjou.runtime.options import RenderOption
+    from henjou.runtime.renderer import Renderer
+    from henjou.scene.testscenes import sphere_gallery_scene
 
     opt = RenderOption(
         image_width=16, image_height=16, max_spp=8, spp_batch=1,

@@ -12,8 +12,8 @@ SCENES = os.path.join(ROOT, "scenes")
 
 
 def test_cornelbox_gltf_loads():
-    from henjou_tpu.scene.gltf import load_gltf
-    from henjou_tpu.scene.scenedata import build_device_scene
+    from henjou.scene.gltf import load_gltf
+    from henjou.scene.scenedata import build_device_scene
 
     scene = load_gltf(os.path.join(SCENES, "cornelbox.gltf"))
     assert len(scene.material_ids) == 12
@@ -22,7 +22,7 @@ def test_cornelbox_gltf_loads():
 
 
 def test_render_option_json_roundtrip():
-    from henjou_tpu.runtime.options import RenderMode, load_render_option
+    from henjou.runtime.options import RenderMode, load_render_option
 
     opt = load_render_option(os.path.join(SCENES, "cornelbox_option.json"))
     assert opt.image_width == 256 and opt.max_spp == 64
@@ -38,7 +38,7 @@ def test_full_json_render_path(tmp_path):
     import dataclasses
     import json
 
-    from henjou_tpu.runtime.renderer import Renderer
+    from henjou.runtime.renderer import Renderer
 
     with open(os.path.join(SCENES, "cornelbox_option.json")) as f:
         doc = json.load(f)
@@ -55,7 +55,7 @@ def test_full_json_render_path(tmp_path):
     r._load_scene_from_option()
     written = r.initialize_and_render()
     assert len(written) == 1
-    from henjou_tpu.post.png import read_png
+    from henjou.post.png import read_png
 
     img = read_png(written[0])
     assert img.shape[:2] == (32, 32)
@@ -65,7 +65,7 @@ def test_full_json_render_path(tmp_path):
 def test_fps_txt_override(tmp_path):
     import json
 
-    from henjou_tpu.runtime.options import load_render_option
+    from henjou.runtime.options import load_render_option
 
     with open(os.path.join(SCENES, "cornelbox_option.json")) as f:
         doc = json.load(f)
@@ -91,12 +91,12 @@ def test_checked_in_obj_scene_renders(tmp_path):
     p = tmp_path / "obj_opt.json"
     p.write_text(json.dumps(doc))
 
-    from henjou_tpu.runtime.renderer import Renderer
+    from henjou.runtime.renderer import Renderer
 
     r = Renderer()
     written = r.initialize_and_render(str(p))
     assert written and os.path.exists(written[0])
-    from henjou_tpu.post.png import read_png
+    from henjou.post.png import read_png
 
     img = read_png(written[0])
     assert img.shape[:2] == (32, 32)

@@ -12,14 +12,14 @@ pytestmark = pytest.mark.skipif(
 
 
 def _flagship(width=16, height=16, max_depth=3):
-    from henjou_tpu.accel.lbvh import build_lbvh
-    from henjou_tpu.accel.traverse import make_bvh_intersector
-    from henjou_tpu.integrator.mis import mis
-    from henjou_tpu.integrator.payload import Sky
-    from henjou_tpu.runtime.camera import camera_rays, make_camera
-    from henjou_tpu.sampling.cmj import make_cmj_state
-    from henjou_tpu.scene.scenedata import build_device_scene, build_frame_scene
-    from henjou_tpu.scene.testscenes import sphere_gallery_scene
+    from henjou.accel.lbvh import build_lbvh
+    from henjou.accel.traverse import make_bvh_intersector
+    from henjou.integrator.mis import mis
+    from henjou.integrator.payload import Sky
+    from henjou.runtime.camera import camera_rays, make_camera
+    from henjou.sampling.cmj import make_cmj_state
+    from henjou.scene.scenedata import build_device_scene, build_frame_scene
+    from henjou.scene.testscenes import sphere_gallery_scene
 
     dev = build_device_scene(sphere_gallery_scene())
     frame = build_frame_scene(dev)
@@ -53,7 +53,7 @@ def test_spp_sharded_matches_sequential():
     mesh) must equal the sequential 8-spp average on one device."""
     from jax.sharding import Mesh
 
-    from henjou_tpu.runtime.sharding import spp_sharded_step
+    from henjou.runtime.sharding import spp_sharded_step
 
     render_one_spp = _flagship()
     mesh = Mesh(np.asarray(jax.devices()[:8]), ("d",))
@@ -73,13 +73,13 @@ def test_wavefront_sharded_matches_unsharded():
     all samples."""
     from jax.sharding import Mesh
 
-    from henjou_tpu.bsdf.dispatch import bsdf_eval, bsdf_pdf, make_bsdf_sampler
-    from henjou_tpu.integrator.payload import Sky
-    from henjou_tpu.integrator.wavefront import wavefront_render
-    from henjou_tpu.runtime.camera import make_camera
-    from henjou_tpu.runtime.sharding import wavefront_sharded_step
-    from henjou_tpu.scene.scenedata import build_device_scene, build_frame_scene
-    from henjou_tpu.scene.testscenes import cornell_box_scene
+    from henjou.bsdf.dispatch import bsdf_eval, bsdf_pdf, make_bsdf_sampler
+    from henjou.integrator.payload import Sky
+    from henjou.integrator.wavefront import wavefront_render
+    from henjou.runtime.camera import make_camera
+    from henjou.runtime.sharding import wavefront_sharded_step
+    from henjou.scene.scenedata import build_device_scene, build_frame_scene
+    from henjou.scene.testscenes import cornell_box_scene
 
     dev = build_device_scene(cornell_box_scene())
     frame = build_frame_scene(dev)
@@ -121,19 +121,19 @@ def test_wavefront_sharded_matches_unsharded():
 def test_tile_sharded_matches_unsharded():
     from jax.sharding import Mesh
 
-    from henjou_tpu.runtime.sharding import tile_sharded_step
+    from henjou.runtime.sharding import tile_sharded_step
 
     render_one = _flagship()
 
     # adapt: render specific pixels at one spp
-    from henjou_tpu.accel.lbvh import build_lbvh
-    from henjou_tpu.accel.traverse import make_bvh_intersector
-    from henjou_tpu.integrator.mis import mis
-    from henjou_tpu.integrator.payload import Sky
-    from henjou_tpu.runtime.camera import camera_rays, make_camera
-    from henjou_tpu.sampling.cmj import make_cmj_state
-    from henjou_tpu.scene.scenedata import build_device_scene, build_frame_scene
-    from henjou_tpu.scene.testscenes import cornell_box_scene
+    from henjou.accel.lbvh import build_lbvh
+    from henjou.accel.traverse import make_bvh_intersector
+    from henjou.integrator.mis import mis
+    from henjou.integrator.payload import Sky
+    from henjou.runtime.camera import camera_rays, make_camera
+    from henjou.sampling.cmj import make_cmj_state
+    from henjou.scene.scenedata import build_device_scene, build_frame_scene
+    from henjou.scene.testscenes import cornell_box_scene
 
     dev = build_device_scene(cornell_box_scene())
     frame = build_frame_scene(dev)

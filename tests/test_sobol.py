@@ -12,7 +12,7 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from henjou_tpu.sampling.cmj import (
+from henjou.sampling.cmj import (
     SOBOL_SEED_FLAG,
     cmj_2d,
     make_cmj_state,
@@ -27,7 +27,7 @@ def _enable_sobol_gate():
     set_sobol_enabled(True)
     yield
     set_sobol_enabled(False)
-from henjou_tpu.sampling.sobol import (
+from henjou.sampling.sobol import (
     nested_uniform_scramble,
     reverse_bits_u32,
     sobol_pair,

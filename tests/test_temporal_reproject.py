@@ -12,7 +12,7 @@ import pytest
 
 
 def _cam(pos, look, fov=np.pi / 4):
-    from henjou_tpu.runtime.camera import make_camera
+    from henjou.runtime.camera import make_camera
 
     d = np.asarray(look, np.float32) - np.asarray(pos, np.float32)
     return make_camera(pos, d / np.linalg.norm(d), fov)
@@ -22,7 +22,7 @@ def test_project_to_pixel_inverts_raygen():
     """Points placed along pixel-center rays project back to those exact
     pixel centers (the dual-basis solve handles the reference's
     non-unit right/up when the camera pitches)."""
-    from henjou_tpu.runtime.camera import camera_rays_centers, project_to_pixel
+    from henjou.runtime.camera import camera_rays_centers, project_to_pixel
 
     w, h = 24, 16
     # pitched camera: direction NOT horizontal, so |right| != 1
@@ -38,7 +38,7 @@ def test_project_to_pixel_inverts_raygen():
 
 
 def test_project_behind_camera_invalid():
-    from henjou_tpu.runtime.camera import project_to_pixel
+    from henjou.runtime.camera import project_to_pixel
 
     cam = _cam([0.0, 0.0, 0.0], [0.0, 0.0, 1.0])
     pts = jnp.asarray([[0.0, 0.0, -5.0], [0.0, 0.0, 5.0]], jnp.float32)
@@ -47,7 +47,7 @@ def test_project_behind_camera_invalid():
 
 
 def test_bilinear_sample_identity_and_bounds():
-    from henjou_tpu.post.denoise import _bilinear_sample
+    from henjou.post.denoise import _bilinear_sample
 
     rng = np.random.default_rng(3)
     img = jnp.asarray(rng.random((8, 12, 3), dtype=np.float32))
@@ -69,8 +69,8 @@ def test_reprojection_beats_blend_under_camera_motion():
     against the current frame's true image. The motion-compensated
     history must align far better than the unwarped history — the ghost
     the plain blend would smear in."""
-    from henjou_tpu.runtime.camera import camera_rays_centers, project_to_pixel
-    from henjou_tpu.post.denoise import _bilinear_sample
+    from henjou.runtime.camera import camera_rays_centers, project_to_pixel
+    from henjou.post.denoise import _bilinear_sample
 
     w, h = 64, 48
 
@@ -119,7 +119,7 @@ def test_reprojection_beats_blend_under_camera_motion():
 def test_denoise_temporal_reprojected_rejects_disocclusion():
     """Lanes whose reprojection is invalid (off-screen / miss) must get
     ZERO history weight — identical to the pure spatial filter there."""
-    from henjou_tpu.post.denoise import (
+    from henjou.post.denoise import (
         denoise_atrous,
         denoise_temporal_reprojected,
     )
@@ -145,7 +145,7 @@ def test_denoise_temporal_reprojected_rejects_disocclusion():
     # but the TAA-style neighborhood clamp bounds the poisoned 7.0
     # history to the 3x3 max of the current spatial estimate, so the
     # pull is real yet the output never exceeds the local range
-    from henjou_tpu.post.denoise import _maxpool3
+    from henjou.post.denoise import _maxpool3
 
     out2 = denoise_temporal_reprojected(
         color, albedo, normal, prev, albedo, normal,
@@ -155,37 +155,38 @@ def test_denoise_temporal_reprojected_rejects_disocclusion():
     assert float((out2 - _maxpool3(spatial)).max()) <= 1e-6
 
 
-def test_chunked_closest_hit_matches_single_call():
-    """_chunked_closest_hit (the probe SMEM fix): a full-frame trace at
-    720p+ used to ask for a 1.84 MB SMEM prefetch operand (worklists
-    scale with ray-tile count) and KILL the depth/guide probes at
-    contest scale — this pins the chunked path (pad + lax.map + strip)
-    against the one-call result on a non-multiple ray count."""
-    from henjou_tpu.runtime.renderer import _chunked_closest_hit
-    from henjou_tpu.integrator.payload import Sky
-    from henjou_tpu.scene.scenedata import (
-        build_device_scene,
-        build_frame_scene,
-    )
-    from henjou_tpu.scene.testscenes import cornell_box_scene
+@pytest.mark.parametrize("scene_name", ["cornell", "gallery"])
+def test_depth_probe_matches_closest_hit(scene_name):
+    """The temporal depth probe (one pixel-center closest-hit pass through
+    the backend's route, or brute force for tiny scenes) must agree with a
+    brute-force closest_hit on the same rays."""
+    from henjou.accel.lbvh import build_lbvh
+    from henjou.integrator.payload import Sky, closest_hit
+    from henjou.runtime.camera import camera_rays_centers, make_camera
+    from henjou.runtime.renderer import _temporal_depth_probe
+    from henjou.scene.scenedata import build_device_scene, build_frame_scene
+    from henjou.scene.testscenes import cornell_box_scene, sphere_gallery_scene
 
-    dev = build_device_scene(cornell_box_scene())
-    frame = jax.jit(build_frame_scene)(dev, None, None)
-    sky = Sky(
-        constant_color=jnp.zeros(3), intensity=jnp.asarray(1.0)
+    if scene_name == "cornell":
+        scene, cam = cornell_box_scene(), make_camera((0, 0, -4.5), (0, 0, 1), np.radians(45.0))
+    else:
+        scene = sphere_gallery_scene()
+        cam = make_camera((0.0, 1.2, -9.0), (0.0, -0.05, 1.0), np.radians(45.0))
+    frame = jax.jit(build_frame_scene)(build_device_scene(scene), None, None)
+    accel = None if scene_name == "cornell" else jax.jit(build_lbvh)(frame.tri_verts)
+    sky = Sky(constant_color=jnp.zeros(3), intensity=jnp.asarray(1.0))
+    w, h = 20, 12
+    pos, hit = _temporal_depth_probe(frame, sky, cam, accel, w, h)
+    o, d = camera_rays_centers(cam, w, h)
+    ref = closest_hit(frame, sky, o, d)
+    assert pos.shape == (h, w, 3) and hit.shape == (h, w)
+    ref_hit = np.asarray(ref.is_hit).reshape(h, w)
+    assert (np.asarray(hit) == ref_hit).all() and ref_hit.any()
+    np.testing.assert_allclose(
+        np.asarray(pos)[ref_hit],
+        np.asarray(ref.position).reshape(h, w, 3)[ref_hit],
+        rtol=1e-5, atol=1e-5,
     )
-    rng = np.random.default_rng(3)
-    r = 2500  # not a multiple of the chunk: exercises pad + strip
-    o = jnp.asarray(rng.uniform(-1, 1, (r, 3)).astype(np.float32))
-    d = rng.normal(size=(r, 3)).astype(np.float32)
-    d /= np.linalg.norm(d, axis=1, keepdims=True)
-    d = jnp.asarray(d)
-    one = _chunked_closest_hit(frame, sky, o, d, None)
-    chunked = _chunked_closest_hit(frame, sky, o, d, None, chunk=1024)
-    for a, b in zip(one, chunked):
-        np.testing.assert_allclose(
-            np.asarray(a), np.asarray(b), atol=1e-6
-        )
 
 
 def test_temporal_accumulate_merges_counts_and_variance():
@@ -193,7 +194,7 @@ def test_temporal_accumulate_merges_counts_and_variance():
     count-weighted average, variance drops accordingly, and the history
     count is capped at cap*n_c. Disoccluded pixels keep the current
     frame untouched."""
-    from henjou_tpu.post.denoise import temporal_accumulate
+    from henjou.post.denoise import temporal_accumulate
 
     h, w = 8, 12
     rng = np.random.default_rng(7)
@@ -244,7 +245,7 @@ def test_temporal_accumulate_neighborhood_clamp():
     """A ghosted history (radiance moved, guides identical — the
     view-dependent case) is clamped to the 3x3 range of the current raw
     mean, so the merged value stays within the local range."""
-    from henjou_tpu.post.denoise import _maxpool3, temporal_accumulate
+    from henjou.post.denoise import _maxpool3, temporal_accumulate
 
     h, w = 8, 8
     rng = np.random.default_rng(11)
@@ -284,7 +285,7 @@ def test_project_to_pixel_nonorthogonal_reference_basis():
     invert raygen for that basis too. Regression for the ~200 px
     vertical reprojection error that silently zeroed the temporal
     history gate (BASELINE.md round-5 temporal ledger)."""
-    from henjou_tpu.runtime.camera import (
+    from henjou.runtime.camera import (
         camera_rays_centers, make_camera, project_to_pixel,
     )
 

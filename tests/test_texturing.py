@@ -6,14 +6,14 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from henjou_tpu.integrator.payload import Sky, closest_hit
-from henjou_tpu.scene.scenedata import (
+from henjou.integrator.payload import Sky, closest_hit
+from henjou.scene.scenedata import (
     SceneData,
     build_device_scene,
     build_frame_scene,
     make_material,
 )
-from henjou_tpu.texture.texture import Texture, TexType
+from henjou.texture.texture import Texture, TexType
 
 
 def _quad_scene(material, textures):

@@ -7,14 +7,14 @@ import pytest
 
 pytestmark = pytest.mark.slow  # full-engine parity runs, minutes each
 
-from henjou_tpu.bsdf.dispatch import make_bsdf_sampler
-from henjou_tpu.integrator.pathtrace import pathtrace
-from henjou_tpu.integrator.payload import Sky
-from henjou_tpu.integrator.wavefront import wavefront_pathtrace
-from henjou_tpu.runtime.camera import camera_rays, make_camera
-from henjou_tpu.sampling.cmj import make_cmj_state
-from henjou_tpu.scene.scenedata import build_device_scene, build_frame_scene
-from henjou_tpu.scene.testscenes import cornell_box_scene
+from henjou.bsdf.dispatch import make_bsdf_sampler
+from henjou.integrator.pathtrace import pathtrace
+from henjou.integrator.payload import Sky
+from henjou.integrator.wavefront import wavefront_pathtrace
+from henjou.runtime.camera import camera_rays, make_camera
+from henjou.sampling.cmj import make_cmj_state
+from henjou.scene.scenedata import build_device_scene, build_frame_scene
+from henjou.scene.testscenes import cornell_box_scene
 
 
 def test_wavefront_matches_masked_loop():
@@ -69,10 +69,10 @@ def test_wavefront_aovs_accumulate_once_per_sample():
 def test_wavefront_nee_mis_match_masked_loops():
     """All three estimators hang off the wavefront bounce step and must be
     pixel-exact vs their masked-loop counterparts (same CMJ streams)."""
-    from henjou_tpu.bsdf.dispatch import bsdf_eval, bsdf_pdf
-    from henjou_tpu.integrator.mis import mis
-    from henjou_tpu.integrator.nee import nee
-    from henjou_tpu.integrator.wavefront import wavefront_render
+    from henjou.bsdf.dispatch import bsdf_eval, bsdf_pdf
+    from henjou.integrator.mis import mis
+    from henjou.integrator.nee import nee
+    from henjou.integrator.wavefront import wavefront_render
 
     dev = build_device_scene(cornell_box_scene())
     frame = build_frame_scene(dev)
@@ -116,9 +116,9 @@ def test_wavefront_nee_mis_match_masked_loops():
 def test_renderer_wavefront_engine_matches_masked():
     import dataclasses
 
-    from henjou_tpu.runtime.options import RenderOption
-    from henjou_tpu.runtime.renderer import Renderer
-    from henjou_tpu.scene.testscenes import cornell_box_scene
+    from henjou.runtime.options import RenderOption
+    from henjou.runtime.renderer import Renderer
+    from henjou.scene.testscenes import cornell_box_scene
 
     opt = RenderOption(
         image_width=16,
@@ -149,71 +149,11 @@ def test_renderer_wavefront_engine_matches_masked():
         )
 
 
-def test_bitonic_sort_carries_payload():
-    """Pallas bitonic (interpret on CPU): key sorted, planes co-permuted."""
-    from henjou_tpu.accel.bitonic import bitonic_sort
-
-    n = 1024
-    rng = np.random.default_rng(3)
-    key = rng.integers(0, 1 << 20, n).astype(np.int32)
-    pf = rng.normal(size=n).astype(np.float32)
-    pu = rng.integers(0, 1 << 30, n).astype(np.uint32)
-    idx = np.arange(n, dtype=np.int32)
-    sk, spf, spu, sidx = (
-        np.asarray(x)
-        for x in bitonic_sort(
-            jnp.asarray(key), jnp.asarray(pf), jnp.asarray(pu),
-            jnp.asarray(idx), interpret=True,
-        )
-    )
-    assert (np.sort(key) == sk).all()
-    perm = sidx
-    assert (key[perm] == sk).all()
-    assert (pf[perm] == spf).all()
-    assert (pu[perm] == spu.astype(np.uint32)).all()
-
-
-def test_wavefront_pool_sort_is_estimator_invariant():
-    """Sorting the lane pool each bounce must not change the estimate
-    (lane order is free: film goes through pix, RNG through counters)."""
-    from henjou_tpu.accel.sorting import ray_sort_key
-    from henjou_tpu.integrator.wavefront import wavefront_render
-
-    dev = build_device_scene(cornell_box_scene())
-    frame = build_frame_scene(dev)
-    sky = Sky(constant_color=jnp.zeros(3), intensity=jnp.asarray(1.0))
-    cam = make_camera((0, 0, -4.5), (0, 0, 1), np.radians(45.0))
-    w = h = 16
-    spp = 8
-    bsdf_sample = make_bsdf_sampler(None)
-    lo = jnp.asarray([-2.0, -2.0, -2.0])
-    inv_e = jnp.asarray([0.25, 0.25, 0.25])
-
-    def keyf(o, d):
-        return ray_sort_key(o, d, lo, inv_e)
-
-    base = jax.jit(
-        lambda: wavefront_render(
-            frame, sky, cam, w, h, spp, bsdf_sample, seed=0, lanes=1024
-        )
-    )()
-    sorted_ = jax.jit(
-        lambda: wavefront_render(
-            frame, sky, cam, w, h, spp, bsdf_sample, seed=0, lanes=1024,
-            pool_key_fn=keyf,
-        )
-    )()
-    np.testing.assert_allclose(
-        np.asarray(sorted_.color), np.asarray(base.color), rtol=1e-4, atol=1e-5
-    )
-    assert float(sorted_.n_traces) == float(base.n_traces)
-
-
 def test_wavefront_pixel_chunks_match_unchunked():
     """Pixel-chunked rendering (film-scatter size-cliff fix) must be
     bitwise-identical to one unchunked call: the CMJ stream and camera
     rays key on the GLOBAL pixel id (wavefront.py spawn)."""
-    from henjou_tpu.integrator.wavefront import wavefront_render
+    from henjou.integrator.wavefront import wavefront_render
 
     dev = build_device_scene(cornell_box_scene())
     frame = build_frame_scene(dev)
@@ -252,8 +192,8 @@ def test_mis_single_converges_to_ref_estimator():
     the MIS branch) is a different estimator of the SAME integral — the
     images must agree within Monte-Carlo noise, measured against the
     ref-estimator's own seed-to-seed noise floor, with fewer traces."""
-    from henjou_tpu.bsdf.dispatch import bsdf_eval, bsdf_pdf
-    from henjou_tpu.integrator.wavefront import wavefront_render
+    from henjou.bsdf.dispatch import bsdf_eval, bsdf_pdf
+    from henjou.integrator.wavefront import wavefront_render
 
     dev = build_device_scene(cornell_box_scene())
     frame = build_frame_scene(dev)
@@ -295,8 +235,8 @@ def test_mis_single_finite_depth_parity():
     rendered systematically dimmer. With the segment, means agree at
     max_depth=2 where the missing term is a large fraction of indirect
     light (round-3 VERDICT weak #4 / next-round ask #6)."""
-    from henjou_tpu.bsdf.dispatch import bsdf_eval, bsdf_pdf
-    from henjou_tpu.integrator.wavefront import wavefront_render
+    from henjou.bsdf.dispatch import bsdf_eval, bsdf_pdf
+    from henjou.integrator.wavefront import wavefront_render
 
     dev = build_device_scene(cornell_box_scene())
     frame = build_frame_scene(dev)

@@ -14,14 +14,14 @@ import numpy as np
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from henjou_tpu.scene.testscenes import cornell_box_scene, sphere_gallery_scene
+from henjou.scene.testscenes import cornell_box_scene, sphere_gallery_scene
 
 SCENES = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "scenes")
 
 
 def write_checker_png(path: str, n: int = 512, tiles: int = 8):
     """Checkerboard base-color texture (sRGB PNG) for the textured floor."""
-    from henjou_tpu.post.png import write_png
+    from henjou.post.png import write_png
 
     y, x = np.mgrid[0:n, 0:n]
     c = ((x * tiles // n) + (y * tiles // n)) % 2
@@ -207,7 +207,7 @@ def scene_to_gltf(
         materials.append(gm)
 
     doc = {
-        "asset": {"version": "2.0", "generator": "henjou_tpu make_scenes"},
+        "asset": {"version": "2.0", "generator": "henjou make_scenes"},
         "buffers": [
             {
                 "byteLength": len(blob),
@@ -321,7 +321,7 @@ def render_option(name, gltf_name, w, h, spp, cam_pos, cam_dir, sky, fov=45.0,
             "camera_direction": list(cam_dir),
             "camera_fov": fov,
         },
-        "PTX_File": {"ptxfile_path": "(unused on TPU)"},
+        "PTX_File": {"ptxfile_path": "(unused)"},
         "Animation": {
             "fps": 24,
             "start_frame": 0,
@@ -336,7 +336,7 @@ def render_option(name, gltf_name, w, h, spp, cam_pos, cam_dir, sky, fov=45.0,
         },
         "Option": {"use_date": False, "save_renderOption": False},
         "LUT": {"LUT_path": ""},
-        "TPU": {"spp_batch": 16, "integrator": integrator},
+        "Henjou": {"spp_batch": 16, "integrator": integrator},
     }
 
 
@@ -358,7 +358,7 @@ def write_obj_scene():
     """Checked-in OBJ + MTL scene (the reference regime: Model/test_obj/
     cornelbox/sphere via objloader.h:12-171): a Cornell-style box authored
     as OBJ with per-material groups, plus a sphere on the floor."""
-    from henjou_tpu.scene.testscenes import _uv_sphere
+    from henjou.scene.testscenes import _uv_sphere
 
     lines = ["mtllib cornelbox.mtl"]
     verts = []
@@ -394,7 +394,7 @@ def write_obj_scene():
         i = base_v + k
         lines.append(f"f {i}//{i} {i+1}//{i+1} {i+2}//{i+2}")
 
-    out = ["# henjou_tpu OBJ validation scene (make_scenes.write_obj_scene)"]
+    out = ["# henjou OBJ validation scene (make_scenes.write_obj_scene)"]
     out += [f"v {p[0]:.6g} {p[1]:.6g} {p[2]:.6g}" for p in verts[: base_v - 1]]
     # sphere verts carry normals; pad vn list so indices line up (vn index
     # == v index for sphere verts; walls use face-normal fallback)
@@ -406,7 +406,7 @@ def write_obj_scene():
 
     with open(os.path.join(SCENES, "cornelbox.obj"), "w") as f:
         f.write("\n".join(out) + "\n")
-    mtl = """# henjou_tpu OBJ validation materials
+    mtl = """# henjou OBJ validation materials
 newmtl white
 Kd 0.73 0.73 0.73
 newmtl red
@@ -464,11 +464,14 @@ def main():
         )
 
     # -------- config #3: thin-film sweep (720p, headline feature #1) ----
-    from henjou_tpu.scene.testscenes import rtcamp_scene, thinfilm_sweep_scene
+    from henjou.scene.testscenes import rtcamp_scene, thinfilm_sweep_scene
 
     tf = thinfilm_sweep_scene()
-    with open(os.path.join(SCENES, "thinfilm_sweep.gltf"), "w") as f:
-        json.dump(scene_to_gltf(tf, "thinfilm_sweep"), f)
+    write_gltf(
+        scene_to_gltf(tf, "thinfilm_sweep"),
+        os.path.join(SCENES, "thinfilm_sweep.gltf"),
+        external_bin=True,
+    )
     with open(os.path.join(SCENES, "thinfilm_sweep_option.json"), "w") as f:
         json.dump(
             render_option(
